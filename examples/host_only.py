@@ -1,6 +1,6 @@
 """Accelerator-free tracking: the native C++ NCC engine + host loop.
 
-No TPU/GPU — and no JAX device — is touched anywhere in this script.
+No GPU — and no JAX device — is touched anywhere in this script.
 Run:  python examples/host_only.py
 """
 

@@ -1,5 +1,5 @@
 """Multi-chip tracking over a jax.sharding Mesh — runnable anywhere via a
-virtual 8-device CPU mesh (the same path the real-TPU mesh uses).
+virtual 8-device CPU mesh (the same path a mesh of GPUs uses).
 
 Run:  python examples/multichip_sharded.py
 

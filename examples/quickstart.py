@@ -1,6 +1,6 @@
 """Quickstart: track a synthetic clip with the high-level API.
 
-Run:  python examples/quickstart.py        (CPU or TPU; small shapes)
+Run:  python examples/quickstart.py        (CPU or GPU; small shapes)
 For a real video, replace the synthetic block with:
     from pvot.io.video import VideoReader
     frames = np.stack(list(VideoReader("clip.mp4")))   # gray u8

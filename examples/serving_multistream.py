@@ -1,18 +1,12 @@
-"""Serving: S independent video streams on one chip via the multi-stream
-mega kernel.
+"""Serving: S independent video streams from one process.
 
-Every chunk of every stream runs in ONE pallas_call (grid (S, F), frame
-axis innermost — pvot/ops/ncc_mega.py `mega_track_chunk_multi`), so each
-stream tracks at the single-stream mega rate: 23-29k aggregate 720p FPS
-at HIGHEST parity on one v5e chip, ~39k on the fast tier
-(docs/PERFORMANCE.md "Saturation point").  On geometries outside the
-mega envelope — or if the per-geometry compile+numerics probe fails —
-`track_streams_mega` transparently falls back to the per-stream scan
-engines with the same output contract.
+pvot.serve_streams runs one background decode/gray thread per stream and
+tracks every lockstep chunk of all S streams as ONE jitted scan of the
+vmapped multi-stream step (pvot.parallel.multi); streams may end at
+different times.  pvot.serve_objects does the same for K trackers over one
+stream.
 
-Run:  python examples/serving_multistream.py
-(CPU-safe: the probe fails fast on non-TPU backends and the scan
-fallback serves the same results.)
+Run:  python examples/serving_multistream.py       (CPU or GPU)
 """
 
 import os
@@ -37,34 +31,15 @@ specs = [
 ]
 videos = np.stack([generate_gray_video(spec) for spec in specs])
 
-# One tracker state per stream, stacked along a leading S axis (the same
-# layout pvot.parallel.multi.init_multi_state produces).
-states = []
-for s, spec in enumerate(specs):
-    x, y, w, h = target_bbox(spec, 0)
-    templ = jnp.asarray(gray_u8_to_f32(videos[s, 0])[y : y + h, x : x + w])
-    states.append(pvot.init_state(templ, (x, y, w, h)))
-states = jax.tree.map(lambda *xs: jnp.stack(xs), *states)
-
-final, out = pvot.track_streams_mega(videos[:, 1:], states, chunk_size=32)
-
-# out.* carry an (F, S) leading layout — one row per frame per stream.
-errs = np.zeros(S, int)
-for s, spec in enumerate(specs):
-    want = np.array([target_bbox(spec, i + 1)[:2] for i in range(79)])
-    errs[s] = np.abs(out.bbox[:, s, :2] - want).max()
-print(f"streams={S} frames/stream={out.bbox.shape[0]} "
-      f"max_err_px per stream={errs.tolist()}")
-assert (errs <= 2).all()
-
-# --- Live serving: frame ITERATORS instead of pre-decoded arrays ------------
+# --- Live serving: frame ITERATORS ------------------------------------------
 # pvot.serve_streams runs one background decode/gray thread per stream
-# (pvot.io.pipeline.FramePipeline) concurrently with the device, stages
-# lockstep pre-padded chunks, and commits per-stream transactional results.
-# Streams may end at different times; each stream's StepOutput has its own
-# length.  Here stream s stops after 40 + 10*s frames.
+# (pvot.io.pipeline.FramePipeline) concurrently with the device and tracks
+# lockstep chunks.  Streams may end at different times; each stream's
+# StepOutput has its own length.  Here stream s stops after 40 + 10*s frames.
 lengths = [40 + 10 * s for s in range(S)]
 feeds = [iter(videos[s, 1 : 1 + lengths[s]]) for s in range(S)]
+# One tracker state per stream, stacked along a leading S axis (the layout
+# pvot.parallel.multi.init_multi_state produces).
 states2 = []
 for s, spec in enumerate(specs):
     x, y, w, h = target_bbox(spec, 0)
@@ -87,8 +62,7 @@ print(f"live serving: {total} frames across {S} streams in {secs:.2f}s "
 
 # --- Multi-object: K trackers over ONE stream --------------------------------
 # pvot.serve_objects runs every chunk of one live stream through the
-# multi-object mega kernel (grid (K, F), shared frames) with the same
-# pipelining/rollback machinery; output gains a (F, K) layout.
+# vmapped multi-object step (shared frames); output gains a (F, K) layout.
 spec0 = specs[0]
 x, y, w, h = target_bbox(spec0, 0)
 obj_rois = [(x, y, w, h), (40, 30, 48, 48)]

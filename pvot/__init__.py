@@ -1,6 +1,6 @@
-"""pvot — TPU-native parallel video object tracker.
+"""pvot — parallel video object tracker in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 CUDA tracker (askEric0/Parallel-Video-Object-Tracker): NCC template-matching
 single-object tracking with interchangeable compute backends, a sequential
 bbox/adaptive-template state machine with lost-object global re-acquisition,
@@ -37,18 +37,6 @@ def __getattr__(name):  # lazy heavyweight entry points
         from pvot.parallel.multi import track_video_multi
 
         return track_video_multi
-    if name == "track_video_mega":
-        from pvot.tracker.mega import track_video_mega
-
-        return track_video_mega
-    if name == "track_streams_mega":
-        from pvot.tracker.mega import track_streams_mega
-
-        return track_streams_mega
-    if name == "track_objects_mega":
-        from pvot.tracker.mega import track_objects_mega
-
-        return track_objects_mega
     if name == "serve_streams":
         from pvot.io.serving import serve_streams
 

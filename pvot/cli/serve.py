@@ -1,23 +1,25 @@
-"""pvot-serve: track S video streams concurrently on one chip.
+"""pvot-serve: track S video streams concurrently on one device.
 
 The reference serves exactly one stream per process — its tracking loop
 owns the single cv::VideoCapture (tracker_ghc/src/main.cpp:83,337-480) —
-so S cameras there cost S processes x S GPUs.  This front end drives
+so S cameras there cost S processes.  This front end drives
 pvot.io.serving.serve_streams: one decode thread per stream, every chunk
-of every stream in ONE pallas_call (the multi-stream mega kernel), with
-per-stream transactional global-search rollback and automatic fallback to
-the lockstep scan engines outside the mega envelope.
+of every stream in ONE jitted scan of the vmapped multi-stream step.
 
 Headless by design (serving has no interactive window): ROIs come from
 --roi — one shared by all streams or one per stream.  Homogeneous inputs
 (one frame size, one ROI W,H) serve through the stacked-template layout
 (pvot.parallel.multi.init_multi_state); MIXED frame sizes and/or ROI sizes
-(the real multi-camera case) serve through geometry groups — one
-multi-stream mega call per (frame size, template size) group, groups
-running concurrently (pvot.io.serving.serve_streams_grouped).  In
-multi-object mode (several --roi over ONE stream) mixed ROI sizes use the
-bucketed layout: one shared-frame mega call, per-object traced extents
+(the real multi-camera case) serve through geometry groups — one scan per
+(frame size, template size) group, groups running concurrently
+(pvot.io.serving.serve_streams_grouped).  In multi-object mode (several
+--roi over ONE stream) mixed ROI sizes use the bucketed layout: one
+shared-frame scan, per-object traced extents
 (pvot.parallel.multi.init_multi_state_bucketed).
+
+Every run prints the NCC engine it runs: "xla" (float32 at
+Precision.HIGHEST), "xla_fast" with --fast, or "bucketed" for mixed ROI
+sizes over one stream.
 
 Examples:
   pvot-serve cam0.mp4 cam1.mp4 cam2.mp4 --roi 600,320,80,80
@@ -40,8 +42,8 @@ from pvot.config import TrackerConfig
 def parse_args(argv: List[str]):
     p = argparse.ArgumentParser(
         prog="pvot-serve",
-        description="Serve S video streams on one chip "
-                    "(multi-stream mega kernel)",
+        description="Serve S video streams from one process "
+                    "(vmapped multi-stream scan)",
     )
     p.add_argument("videos", nargs="*", help="one video path per stream")
     p.add_argument(
@@ -59,31 +61,9 @@ def parse_args(argv: List[str]):
     )
     p.add_argument("--chunk-size", type=int, default=32)
     p.add_argument(
-        "--pipeline-depth", type=int, default=2,
-        help="chunks in flight before each poison check (1 = synchronous)",
-    )
-    p.add_argument(
         "--fast", action="store_true",
-        help="mega fast tier (bf16 score dot, see --score-passes; "
-             "trajectory identity is a measured per-clip property like "
-             "every fast engine)",
-    )
-    p.add_argument(
-        "--score-passes", type=int, default=3, choices=(1, 2, 3),
-        help="fast-tier MXU pass count (with --fast): 3 = bf16 hi/lo "
-             "(default), 2/1 trade score precision for throughput (1 is "
-             "the bench.py headline tier; keep 3 when confidence "
-             "thresholds do real work, e.g. occlusion-heavy fleets)",
-    )
-    p.add_argument(
-        "--scan-backend", default="pallas_shear",
-        help="engine for global-search rollbacks and the non-mega fallback",
-    )
-    p.add_argument(
-        "--no-prepad", action="store_true",
-        help="ship wire-size frames and pad on device (less host->device "
-             "bandwidth; default pre-pads on the host, which is faster "
-             "on-device — see pvot.serve_streams)",
+        help="local-search correlation at Precision.HIGH (the xla_fast "
+             "engine, TF32 on an H100; see pvot.ops.backends)",
     )
     p.add_argument(
         "--devices", type=int, default=0, metavar="N",
@@ -123,6 +103,29 @@ def _parse_roi(text: str):
     if w <= 0 or h <= 0:
         raise SystemExit(f"Invalid --roi {text!r}: W and H must be positive")
     return x, y, w, h
+
+
+def _engine(args) -> str:
+    """The NCC engine the flags name (pvot.ops.backends)."""
+    return "xla_fast" if args.fast else "xla"
+
+
+def _config(args) -> TrackerConfig:
+    radius = (
+        {"search_radius_x": args.search_radius,
+         "search_radius_y": args.search_radius}
+        if args.search_radius is not None else {}
+    )
+    return TrackerConfig(**radius).validate()
+
+
+def _devices(args):
+    """The first --devices N local devices, or None for the default one."""
+    if args.devices <= 0:
+        return None
+    import jax
+
+    return jax.devices()[: args.devices]
 
 
 def _limit(it, n: int):
@@ -266,7 +269,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # --- ROIs: one shared, one per stream, or synthetic defaults.  With a
     # SINGLE stream, several --roi flags switch to multi-object mode: K
-    # trackers over the one stream (the multi-object mega kernel). ---------
+    # trackers over the one stream (the vmapped multi-object step). -------
     objects_mode = False
     if args.roi:
         try:
@@ -310,8 +313,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if hetero_rois:
             # Mixed template sizes over one stream: the BUCKETED layout
             # (zero-padded to the max extent, traced per-object extents —
-            # pvot.parallel.multi.init_multi_state_bucketed; the mega
-            # kernel runs it natively, round 4).
+            # pvot.parallel.multi.init_multi_state_bucketed).
             from pvot.parallel.multi import init_multi_state_bucketed
 
             states = init_multi_state_bucketed(
@@ -328,8 +330,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             (rois[0][2], rois[0][3]), closers,
         )
     if hetero_rois or hetero_frames:
-        # Heterogeneous serving: per-stream states, geometry-grouped mega
-        # calls (pvot.io.serving.serve_streams_grouped).
+        # Heterogeneous serving: per-stream states, geometry-grouped scans
+        # (pvot.io.serving.serve_streams_grouped).
         from pvot.tracker.state import init_state
 
         states_list = [
@@ -346,32 +348,23 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _run_objects(args, feed, states, frame_shape, templ_wh, closers) -> int:
     """Multi-object serving: K trackers over one stream
-    (pvot.serve_objects — the multi-object mega kernel with per-object
-    transactional rollback)."""
+    (pvot.serve_objects — the vmapped multi-object step)."""
     from pvot.io.serving import serve_objects
+    from pvot.parallel.multi import is_bucketed
 
     k = int(np.shape(states.t_mean)[0])
-    config = TrackerConfig(
-        **(
-            {"search_radius_x": args.search_radius,
-             "search_radius_y": args.search_radius}
-            if args.search_radius is not None else {}
-        )
-    ).validate()
+    config = _config(args)
+    engine = "bucketed" if is_bucketed(states) else _engine(args)
     print(f"Serving 1 stream x {k} objects at "
           f"{frame_shape[1]}x{frame_shape[0]}, template "
           f"{templ_wh[0]}x{templ_wh[1]}, chunk {args.chunk_size}, "
-          f"tier {'fast' if args.fast else 'highest'}")
+          f"engine {engine}")
     timings: list = []
     t0 = time.perf_counter()
     try:
         final, out = serve_objects(
-            feed, states, frame_shape, config,
-            scan_backend=args.scan_backend,
+            feed, states, frame_shape, config, backend=_engine(args),
             chunk_size=args.chunk_size, timings=timings,
-            highest=not args.fast, score_passes=args.score_passes,
-            pipeline_depth=args.pipeline_depth,
-            prepad=not args.no_prepad,
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if a stream raises mid-serve
@@ -421,24 +414,13 @@ def _run_objects(args, feed, states, frame_shape, templ_wh, closers) -> int:
 def _run_serving_grouped(
     args, feeds, states_list, frame_shapes, rois, closers
 ) -> int:
-    """Heterogeneous serving: per-stream states, geometry-grouped mega
-    calls (pvot.io.serving.serve_streams_grouped)."""
+    """Heterogeneous serving: per-stream states, geometry-grouped scans
+    (pvot.io.serving.serve_streams_grouped)."""
     from pvot.io.serving import serve_streams_grouped
 
     n_streams = len(feeds)
-    config = TrackerConfig(
-        **(
-            {"search_radius_x": args.search_radius,
-             "search_radius_y": args.search_radius}
-            if args.search_radius is not None else {}
-        )
-    ).validate()
-
-    devices = None
-    if args.devices > 0:
-        import jax
-
-        devices = jax.devices()[: args.devices]
+    config = _config(args)
+    devices = _devices(args)
     shapes = sorted(
         {
             (fs, tuple(np.shape(st.template)))
@@ -449,19 +431,14 @@ def _run_serving_grouped(
         f"{fw}x{fh}/t{tw}x{th}" for (fh, fw), (th, tw) in shapes
     )
     print(f"Serving {n_streams} streams in {len(shapes)} geometry groups "
-          f"({groups}), chunk {args.chunk_size}, "
-          f"tier {'fast' if args.fast else 'highest'}"
+          f"({groups}), chunk {args.chunk_size}, engine {_engine(args)}"
           + (f", {len(devices)} devices" if devices else ""))
     timings: list = []
     t0 = time.perf_counter()
     try:
         finals, outs = serve_streams_grouped(
-            feeds, states_list, frame_shapes, config,
-            scan_backend=args.scan_backend,
-            chunk_size=args.chunk_size, timings=timings,
-            highest=not args.fast, score_passes=args.score_passes,
-            pipeline_depth=args.pipeline_depth,
-            prepad=not args.no_prepad, devices=devices,
+            feeds, states_list, frame_shapes, config, backend=_engine(args),
+            chunk_size=args.chunk_size, timings=timings, devices=devices,
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if a stream raises mid-serve
@@ -523,33 +500,18 @@ def _run_serving(args, feeds, states, frame_shape, templ_wh, closers) -> int:
     from pvot.io.serving import serve_streams
 
     n_streams = len(feeds)
-    config = TrackerConfig(
-        **(
-            {"search_radius_x": args.search_radius,
-             "search_radius_y": args.search_radius}
-            if args.search_radius is not None else {}
-        )
-    ).validate()
-
-    devices = None
-    if args.devices > 0:
-        import jax
-
-        devices = jax.devices()[: args.devices]
+    config = _config(args)
+    devices = _devices(args)
     print(f"Serving {n_streams} streams at {frame_shape[1]}x{frame_shape[0]}, "
           f"template {templ_wh[0]}x{templ_wh[1]}, chunk {args.chunk_size}, "
-          f"tier {'fast' if args.fast else 'highest'}"
+          f"engine {_engine(args)}"
           + (f", {len(devices)} devices" if devices else ""))
     timings: list = []
     t0 = time.perf_counter()
     try:
         final, outs = serve_streams(
-            feeds, states, frame_shape, config,
-            scan_backend=args.scan_backend,
-            chunk_size=args.chunk_size, timings=timings,
-            highest=not args.fast, score_passes=args.score_passes,
-            pipeline_depth=args.pipeline_depth,
-            prepad=not args.no_prepad, devices=devices,
+            feeds, states, frame_shape, config, backend=_engine(args),
+            chunk_size=args.chunk_size, timings=timings, devices=devices,
         )
         elapsed = time.perf_counter() - t0
     finally:  # decoder handles must not leak if a stream raises mid-serve

@@ -8,8 +8,8 @@ fixed-point weighted sum with rounding, 15 fractional bits:
     Y = (B*3735 + G*19235 + R*9798 + 16384) >> 15        (weights sum to 2^15)
 
 We reproduce that bit-exactly on the host (via cv2 when present, else the
-fixed-point formula in numpy), and also provide a float-weight device-side
-variant for pipelines that upload raw BGR and convert on-TPU.
+fixed-point formula in numpy); the device receives uint8 gray and converts
+only the slices it reads (ensure_gray_f32).
 """
 
 from __future__ import annotations
@@ -90,15 +90,3 @@ def ensure_gray_f32(img):
         return img.astype(jnp.float32) * jnp.float32(1.0 / 255.0)
     return img.astype(jnp.float32)
 
-
-def device_bgr_to_gray_f32(frame_bgr_u8):
-    """jnp uint8 BGR (H, W, 3) -> float32 gray/255 on device.
-
-    Float-weight variant (0.114 B + 0.587 G + 0.299 R); within 1 LSB of the
-    host fixed-point path.
-    """
-    import jax.numpy as jnp
-
-    w = jnp.asarray([0.114, 0.587, 0.299], dtype=jnp.float32)
-    f = frame_bgr_u8.astype(jnp.float32)
-    return (f @ w) * jnp.float32(1.0 / 255.0)

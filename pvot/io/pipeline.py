@@ -5,7 +5,7 @@ loop (tracker_ghc/src/main.cpp:362-365 + the per-call cudaMemcpy in every op,
 baseline_kernel.cu:278-279) — nothing overlaps.  Here a background thread
 decodes and gray-converts (native C++ kernels, pvot.runtime.native) into a
 lock-free ring; the consumer pops chunk-sized uint8 arrays and ships them to
-the device while the TPU scans the previous chunk.  The tail chunk is
+the device while the device scans the previous chunk.  The tail chunk is
 zero-padded with a validity count, matching the masked-scan contract
 (pvot.tracker.scan.make_masked_scan_fn).
 """
@@ -167,12 +167,6 @@ def track_stream(
     burns into recorded frames (the reference burns per-frame tick-delta
     FPS, tracker_ghc/src/main.cpp:470-478; a scanned chunk is this
     pipeline's smallest honestly-timeable unit).
-
-    backend="mega" runs each chunk as ONE pallas_call (pvot.ops.ncc_mega)
-    with the per-chunk transactional global-search fallback from
-    pvot.tracker.mega; if the geometry is outside the mega envelope or its
-    compile/numerics probe fails, the stream falls back to the pallas_shear
-    scan engine (and onward through the registry's probe chain).
     """
     import jax
 
@@ -182,36 +176,15 @@ def track_stream(
     config = config or TrackerConfig()
     h, w = frame_shape
     th, tw = state.template.shape
-    if backend == "mega":
-        from pvot.tracker.mega import mega_mode
-
-        # The mega kernel implements exactly the fused local-search
-        # strategy; other strategies (e.g. "full") run on the scan engines
-        # instead of silently changing semantics.  mega_mode prefers the
-        # in-kernel global-search kernel (True) — nothing ever poisons —
-        # over the poison-transaction kernel (False).
-        mode = (
-            mega_mode((h, w), (th, tw), config)
-            if strategy == "fused" else None
-        )
-        if mode is not None:
-            return _track_stream_mega(
-                frame_iter, state, frame_shape, config, chunk_size, timings,
-                inkernel_global=mode,
-            )
-        backend = "pallas_shear"
     scan_fn = _cached_masked_scan(
         (h, w), (th, tw), config, strategy, backend, "uint8", chunk_size
     )
     pipe = FramePipeline(frame_iter, frame_shape, chunk_size=chunk_size)
     outs = []
     # Fetch each chunk's per-frame records eagerly (they are tiny:
-    # bbox/score/flags).  This bounds device-side output memory, is the
-    # natural streaming contract (results arrive as the stream advances),
-    # and avoids the remote-relay worst case where a single end-of-run
-    # fetch must drain the entire enqueued video (measured minutes /
-    # occasional silent process death on the test harness; see
-    # docs/PERFORMANCE.md measurement protocol).  The fetch is async
+    # bbox/score/flags).  This bounds device-side output memory and is the
+    # natural streaming contract (results arrive as the stream advances).
+    # The fetch is async
     # (copy_to_host_async) and materializes one chunk LATE, so chunk k's
     # host conversion overlaps chunk k+1's dispatch.
     pending = None  # (device-sliced leaves, n_real)
@@ -240,103 +213,6 @@ def track_stream(
             pending = (sliced, n_real)
         if pending is not None:
             drain(pending)
-    finally:
-        pipe.close()
-    return state, _stack_outputs(outs)
-
-
-def _track_stream_mega(
-    frame_iter: Iterable[np.ndarray],
-    state,
-    frame_shape: Tuple[int, int],
-    config,
-    chunk_size: int,
-    timings: Optional[list],
-    scan_backend: str = "pallas_shear",
-    interpret: bool = False,  # tests drive the Pallas interpreter on CPU
-    batch: int = 1,
-    inkernel_global: bool = False,
-):
-    """track_stream's mega path: one pallas_call per chunk.
-
-    The stream is inherently eager (results leave per chunk), which makes
-    the transactional poison protocol simple: fetch each chunk's rows,
-    and if any frame poisoned (global-search branch), re-run exactly that
-    chunk through the scan engine from the chunk-start snapshot before
-    advancing — semantics stay identical to the scan path on every frame
-    (pvot.tracker.mega docstring).
-
-    batch > 1 (power of two; the caller guarantees chunk_size % batch == 0)
-    runs the reference's look-ahead batch cadence IN the kernel
-    (pvot.ops.ncc_mega batch param); a poisoned chunk rolls back onto the
-    BATCHED scan path so the cadence survives the transaction."""
-    import jax
-    import jax.numpy as jnp
-
-    from pvot.ops.ncc_mega import MegaGeometry, O_POISON
-    from pvot.tracker.mega import _rows_to_output, mega_chunk_step
-    from pvot.tracker.scan import _cached_masked_scan, _stack_outputs
-
-    h, w = frame_shape
-    th, tw = state.template.shape
-    scan_fn = None  # built lazily: only a poisoned chunk needs it
-    pipe = FramePipeline(frame_iter, frame_shape, chunk_size=chunk_size)
-    # Host-pre-padded staging (the bench.py mega default): one reused
-    # buffer is safe because the synchronous per-chunk rows fetch below
-    # forces the previous chunk's input transfer to completion before the
-    # buffer is rewritten (~6-8 us/frame cheaper than the in-jit pad,
-    # tools/mega_fast_ab.py).
-    g = MegaGeometry((h, w), (th, tw), config)
-    staged = np.zeros((chunk_size, g.pad_h, g.pad_w), np.uint8)
-    outs = []
-    mark = time.perf_counter()
-    try:
-        for chunk, n_real in pipe.chunks():
-            snapshot = state
-            staged[:, :h, :w] = chunk
-            dev_chunk = jax.device_put(staged)
-            rows, state = mega_chunk_step(
-                dev_chunk, state, n_real,
-                frame_shape=(h, w), templ_shape=(th, tw), config=config,
-                interpret=interpret, batch=batch,
-                inkernel_global=inkernel_global,
-            )
-            rows.copy_to_host_async()
-            host_rows = np.asarray(rows)[:n_real]
-            if (host_rows[:, O_POISON] != 0.0).any():
-                # Transaction rollback: this chunk re-runs on the scan path
-                # (exact global-search semantics); the next chunk resumes
-                # from its final state.  Batch cadence rolls back onto the
-                # BATCHED scan step (same per-frame output contract).
-                if batch > 1:
-                    from pvot.tracker.scan import track_video_batched
-
-                    state, out = track_video_batched(
-                        np.asarray(chunk[:n_real]), snapshot, config,
-                        batch_size=batch, backend=scan_backend,
-                    )
-                    outs.append(out)
-                else:
-                    if scan_fn is None:
-                        scan_fn = _cached_masked_scan(
-                            (h, w), (th, tw), config, "fused", scan_backend,
-                            "uint8", chunk_size,
-                        )
-                    valid = np.arange(chunk_size) < n_real
-                    # The scan path consumes WIRE-SIZE frames — re-ship the
-                    # unpadded chunk, not the pre-padded staging buffer.
-                    state, out = scan_fn(
-                        snapshot, jax.device_put(chunk), jax.device_put(valid)
-                    )
-                    outs.append(
-                        jax.tree.map(lambda a: np.asarray(a[:n_real]), out)
-                    )
-            else:
-                outs.append(_rows_to_output(host_rows))
-            now = time.perf_counter()
-            if timings is not None:
-                timings.append((n_real, now - mark))
-            mark = now
     finally:
         pipe.close()
     return state, _stack_outputs(outs)
@@ -377,23 +253,6 @@ def track_stream_batched(
     h, w = frame_shape
     th, tw = state.template.shape
     group = max(1, chunks_per_dispatch)
-    if backend == "mega" and strategy == "fused":
-        # Round 4: batch semantics compose with the mega grid — the kernel
-        # scores only every n-th frame (power-of-two cadence mask), skipped
-        # look-ahead frames cost nothing.  Round 3 degraded this to the
-        # shear scan engine via the registry.
-        from pvot.tracker.mega import mega_mode
-
-        mode = (
-            mega_mode((h, w), (th, tw), config, batch=n)
-            if n > 1 and (n & (n - 1)) == 0 else None
-        )
-        if mode is not None:
-            return _track_stream_mega(
-                frame_iter, state, frame_shape, config, n * group, timings,
-                batch=n, inkernel_global=mode,
-            )
-        backend = "pallas_shear"
     scan_fn = make_batched_scan_fn(
         (h, w), (th, tw), config, n, strategy, backend
     )

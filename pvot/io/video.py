@@ -1,12 +1,12 @@
 """Host-side video decode/encode.
 
-TPU-native equivalent of the reference's L1 I/O layer (SURVEY.md §1 L1):
+pvot's equivalent of the reference's L1 I/O layer (SURVEY.md §1 L1):
 cv::VideoCapture decode (tracker_ghc/src/main.cpp:83,147), cv::VideoWriter
 encode with avc1 -> MJPG fourcc fallback (tracker_ghc/src/main.cpp:330-339).
 
 Decode happens on the host; frames are handed to the device pipeline as uint8
 (gray or BGR) so PCIe traffic stays small.  See pvot.io.pipeline for the
-prefetching ring that overlaps decode with TPU compute.
+prefetching ring that overlaps decode with device compute.
 """
 
 from __future__ import annotations

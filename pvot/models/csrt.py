@@ -4,7 +4,7 @@ Faithful equivalent of baseline_cpu/cpub.cpp: the tracker itself is OpenCV's
 CSRT used as a black box, wrapped with per-stage timing
 (decode/track/draw/write totals, cpub.cpp:101-148) and the raw-frame cache
 loader (cpub.cpp loadCachedVideo; format in pvot.io.video.load_cached_video).
-This is a comparison baseline, not a TPU path — exactly as in the reference,
+This is a comparison baseline, not a device path — exactly as in the reference,
 where it exists only to benchmark the NCC tracker against.
 
 Reference quirk intentionally NOT reproduced: cpub.cpp:192-193 skips

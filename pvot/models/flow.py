@@ -1,4 +1,4 @@
-"""TPU-native dense optical-flow tracker (baseline B2, SURVEY.md §2c).
+"""JAX dense optical-flow tracker (baseline B2, SURVEY.md §2c).
 
 The reference's second standalone baseline (baseline_cuda/cudab.cpp) tracks a
 box with OpenCV's CUDA Farneback dense flow: per frame it computes full-frame
@@ -8,9 +8,9 @@ by the MEDIAN (dx, dy) (upper median via nth_element, cudab.cpp:23-27,
 84-103) truncated toward zero, clamped to the frame (cudab.cpp:18-22).
 
 This rebuild keeps that exact box-update contract but computes the dense flow
-TPU-natively: coarse-to-fine Lucas-Kanade with integral-image window sums
-(pvot.ops.ncc_matmul.sliding_box_sums — no large-kernel convs, which never
-reach the MXU) and bilinear warping.  The whole per-frame update is one
+in JAX: coarse-to-fine Lucas-Kanade with integral-image window sums
+(pvot.ops.ncc_matmul.sliding_box_sums — no large-kernel convs) and bilinear
+warping.  The whole per-frame update is one
 jittable function, scanned over the video like the NCC tracker.
 """
 

@@ -5,7 +5,7 @@ confidence gating, template EMA, lost-object global re-acquisition;
 tracker_ghc/src/main.cpp:399-463) on the host CPU, with the NCC computed by
 the native C++ engine (pvot/runtime/libpvot.cpp::pvot_ncc_match_f32 — the
 analog of tracker/src/ncc_cpu.cpp; OpenMP + integral images; numpy fallback
-when no toolchain).  This makes pvot usable with no TPU/accelerator at all,
+when no toolchain).  This makes pvot usable with no accelerator at all,
 and serves as an independent second implementation of the tracker
 semantics: tests assert trajectory equality against the scanned JAX path on
 every tested/fuzzed clip.  That equality is a measured per-clip property,

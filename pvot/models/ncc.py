@@ -3,7 +3,7 @@
 Object-style convenience wrapper over the functional core
 (pvot.tracker.*): construct from the first frame + ROI, call
 `update(frame)` per frame or `track(frames)` for whole clips.  The
-underlying step is the fused TPU path (MXU matmul NCC, scan-carried
+underlying step is the fused device path (matmul NCC, scan-carried
 state); everything the reference tracker does (C5-C8 semantics,
 SURVEY.md §2a) plus checkpoint/resume.
 """

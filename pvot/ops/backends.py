@@ -1,151 +1,81 @@
-"""NCC backend registry.
+"""NCC engine registry.
 
-The reference exposes five interchangeable NCC backends selected by CLI flag
-(tracker_ghc/src/main.cpp:63-75, README.md:56-86).  Their TPU-native
-equivalents (SURVEY.md §2e):
+The reference exposes five interchangeable NCC kernels selected by CLI flag
+(tracker_ghc/src/main.cpp:63-75, README.md:56-86).  pvot resolves each
+reference mode name to one engine, by name alone: no compile, no probe and
+no fallback sit between the name and the engine that runs.
 
-  reference mode      TPU backend        implementation
-  --------------      -----------        --------------
-  (default, "cuda")   "xla"              XLA conv-based NCC (compiler-tiled
-                                         onto the MXU — the 'let XLA do it'
-                                         analog of the naive kernel)
-  --cpu               "cpu"              cv::matchTemplate(TM_CCOEFF_NORMED)
-                                         parity math, pure JAX
-  --shared            "pallas_shear"     Pallas kernel, template resident in
-                                         VMEM (shared/const-memory analog);
-                                         operator-free shear formulation
-  --const             "pallas_shear"     alias of the above — on TPU there is
-                                         no separate constant memory; VMEM
-                                         residency covers both
-  --const_tiled       "pallas_shear"     same kernel; frame tiles are staged
-                                         through VMEM by the BlockSpec
-                                         pipeline (the tiled analog)
-  --batch=N           any + batching     leading frame axis (vmap) — see
-                                         pvot.tracker.scan
+  mode name                   engine      implementation
+  ---------                   ------      --------------
+  cuda (default), naive,      "xla"       im2col matmul + integral images
+  batch, xla, shared, const,              (pvot.ops.ncc_matmul), f32 at
+  const_tiled, auto                       Precision.HIGHEST
+  cpu                         "cpu"       cv::matchTemplate(TM_CCOEFF_NORMED)
+                                          parity math (ncc_matmul)
+  fast, xla_fast              "xla_fast"  "xla" with the local-search
+                                          correlation at Precision.HIGH
+  ref_conv                    "ref_conv"  the conv oracle (tests only)
 
-Every backend provides (full_fn, region_fn, region_argmax_fn):
-  full_fn(frame, templ, t_mean, t_std) -> full NCC map (global search/parity)
-  region_fn(frame, templ, t_mean, t_std, x0, y0) -> fixed-size candidate
-      region scores (the fused local fast path)
-  region_argmax_fn(frame, templ, t_mean, t_std, x0, y0, bounds)
-      -> (best_val, x, y), or None.  When present (the Pallas engine), the
-      window masking + argmax + reduction happen INSIDE the kernel and only
-      the three scalars leave the chip (SURVEY.md §7 step 4's north star);
-      the tracker step then skips region_fn + masked_region_argmax.
+The reference's --shared/--const/--const_tiled kernels differ only in where
+they keep the template and the frame tile; the math is the one naive NCC.
+Here they alias the "xla" engine: a fused Triton kernel for the local search
+(template and frame tile on chip, as those kernels did) was measured slower
+than XLA end to end on an H100 (PERF.md), so it is not kept.  --batch=N
+composes with any engine (pvot.tracker.scan).
+
+Every engine provides (full_fn, region_fn):
+  full_fn(frame, templ, t_mean, t_std) -> full NCC map (global search)
+  region_fn(frame, templ, t_mean, t_std, x0, y0) -> (span_y, span_x) scores
+      of the candidate window
+
+Precision on an NVIDIA GPU: a float32 dot without an explicit precision may
+run in TF32 there, so every engine states its precision.  Precision.HIGHEST
+is float32 without TF32 (cuBLAS, measured 4e-7 relative error on an H100 at
+the engine's dot shape).  XLA runs Precision.HIGH as TF32 on the H100: the
+same 3.6e-4 relative error as DEFAULT (PERF.md).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Tuple
+
+from jax import lax
 
 from pvot.config import TrackerConfig
+from pvot.ops import ncc_matmul
 from pvot.ops.ncc_reference import ncc_map_reference
-from pvot.tracker import step as step_mod
 
-# Reference CLI mode name -> backend name.
+# Reference CLI mode name -> engine name.
 MODE_TO_BACKEND = {
     "cuda": "xla",
     "naive": "xla",
     "xla": "xla",
-    "cpu": "cpu",
-    # The reference's VMEM-residency modes resolve to the fastest Pallas
-    # engine (shear); probe failure falls back to the operator-Pallas
-    # kernel and then the matmul formulation (see get_backend).
-    "shared": "pallas_shear",
-    "const": "pallas_shear",
-    "const_tiled": "pallas_shear",
-    "pallas": "pallas",
     "batch": "xla",
-    # pvot-native serving mode (no reference equivalent): the correlation
-    # matmul runs at precision=HIGH (3 bf16 passes) instead of HIGHEST (6).
-    # Measured on-chip (tools/perf_ab.py): trajectories bit-identical to the
-    # HIGHEST engine over 1024 EMA-coupled frames, score drift <= 8.6e-6 —
-    # the same order as f32 accumulation-order noise for 6400-term windows
-    # (the oracle tests' own 1e-5 tolerance) — for ~12% higher throughput.
+    "cpu": "cpu",
+    "shared": "xla",
+    "const": "xla",
+    "const_tiled": "xla",
+    "auto": "xla",
     "fast": "xla_fast",
     "xla_fast": "xla_fast",
-    # Fast Pallas engine: the hot fused region/argmax kernels run their
-    # dominant correlation matmul as a 3-pass bf16 hi/lo decomposition
-    # (pvot.ops.ncc_pallas._dot_hl3 — Mosaic rejects precision=HIGH inside
-    # kernels, so HIGH's structure is emulated explicitly; 8.8e-6 rel vs
-    # XLA HIGH on-chip).  Global-search full maps stay HIGHEST, mirroring
-    # xla_fast.  Like "fast", trajectory identity vs the HIGHEST engines is
-    # a measured per-clip property, guarded by bench.py's per-run
-    # ground-truth check.
-    "pallas_fast": "pallas_fast",
-    # Operator-free shear Pallas engine (round 3): the correlation operator
-    # is never materialized — per template row, a strided pltpu.roll of the
-    # broadcast row builds the transposed Toeplitz block in registers and a
-    # lane-contracting HIGHEST dot consumes it (ncc_pallas._score_tile,
-    # shear=True).  Eliminates the per-frame 10.5 MB operator build
-    # (~16 us) AND its HBM->VMEM DMA (~13 us) measured in
-    # tools/region_step_breakdown.py.  Full HIGHEST parity math.
-    "pallas_shear": "pallas_shear",
-    "shear": "pallas_shear",
-    # The mega-kernel (round 3: the whole chunk in ONE pallas_call,
-    # pvot.ops.ncc_mega) is a chunk-level DRIVER, not a per-frame engine —
-    # pvot.io.pipeline.track_stream and pvot.tracker.mega.track_video_mega
-    # intercept backend="mega" before this registry.  Scan-style consumers
-    # that reach here with "mega" (e.g. --batch composition, where batch
-    # semantics preclude the chunk-transactional design) degrade to the
-    # shear engine: the mega kernel computes exactly the shear math
-    # per frame.
-    "mega": "pallas_shear",
-    # Geometry-based engine choice (measured crossover, docs/PERFORMANCE.md):
-    # the matmul engine wins at small search radii (r60/720p: 10.4k vs 5.5k
-    # FPS) because the Pallas path pays a ~10.5 MB Toeplitz-operator rebuild
-    # per template update; the Pallas kernel wins once the im2col buffer
-    # outgrows that fixed cost (1080p/r160: 2,128 vs 1,670 FPS) because it
-    # keeps every intermediate in VMEM.
-    "auto": "auto",
-    # Conv-based oracle (slow on TPU for large kernels; test/debug only).
     "ref_conv": "ref_conv",
 }
 
-
-def prefer_pallas(templ_shape, span_x: int, span_y: int) -> bool:
-    """auto-backend engine choice, re-measured round 3 on-chip
-    (tools/engine_ab_bench.py, within-process A/Bs): the operator-free
-    SHEAR Pallas engine wins or ties everything at EVERY tested geometry
-    (FPS, trajectory-equal, shear vs operator-Pallas vs matmul_fast) —
-      720p/t80/r60  (headline)  15,876 vs 11,622 vs 10,894
-      720p/t80/r20              14,287 vs 14,265 vs 11,144
-      720p/t32/r60              25,615 vs 17,866 vs 18,577
-      1080p/t160/r160 (unfused)  1,304 vs  1,224 vs    428
-    Round 2's matmul-wins-at-r60 crossover was an artifact of the Hankel
-    operator build (~80 us/frame in-scan); round 3's direct slice-stack
-    build killed that, and the shear formulation then removed the operator
-    entirely (no build pass, no operator DMA).  The auto backend therefore
-    always prefers the shear Pallas engine; the geometry-keyed support
-    probe (and its graceful operator-Pallas -> matmul fallback chain)
-    remains the only gate.  The signature is kept so a future re-measured
-    crossover can slot back in."""
-    del templ_shape, span_x, span_y
-    return True
+# Engine name -> precision of its local-search correlation.
+ENGINE_PRECISION = {
+    "xla": "highest",
+    "cpu": "highest",
+    "xla_fast": "high",
+    "ref_conv": "highest",
+}
 
 
-
-
-def _maybe_fused_argmax(
-    frame_shape, templ_shape, span_x: int, span_y: int, highest: bool = True,
-    shear: bool = False,
-):
-    """Fused on-chip argmax only when the candidate region fits ONE kernel
-    tile (span <= 128 in both axes).  Measured on-chip (2026-08-17,
-    tools/engine_ab_bench.py): at 720p/r60 (single tile) the fused kernel
-    wins (84.3 vs 86.0 us/frame); at 1080p/r160 (3x3 tile grid) the
-    per-tile partials + cross-tile combine LOSE to the unfused path
-    (991 vs 878 us/frame), so multi-tile geometries keep the score-map +
-    XLA-argmax formulation."""
-    from pvot.ops.ncc_pallas import pallas_region_argmax_fn
-
-    if span_x > 128 or span_y > 128:
-        return None
-    return pallas_region_argmax_fn(
-        frame_shape, templ_shape, (span_y, span_x), highest=highest,
-        shear=shear,
-    )
-
+def resolve(name: str) -> str:
+    """Mode or engine name -> engine name; unknown names raise."""
+    engine = MODE_TO_BACKEND.get(name)
+    if engine is None:
+        raise ValueError(f"unknown NCC backend: {name!r}")
+    return engine
 
 
 def get_backend(
@@ -153,82 +83,26 @@ def get_backend(
     frame_shape: Tuple[int, int],
     templ_shape: Tuple[int, int],
     config: TrackerConfig,
-) -> Tuple[Callable, Callable, Optional[Callable]]:
-    """Resolve a backend name to (full_fn, region_fn, region_argmax_fn)."""
+) -> Tuple[Callable, Callable]:
+    """Resolve a mode or engine name to (full_fn, region_fn)."""
+    del frame_shape, templ_shape  # every engine is shape-generic
     span_x = 2 * config.search_radius_x + 1
     span_y = 2 * config.search_radius_y + 1
-    name = MODE_TO_BACKEND.get(name, name)
-    if name == "xla":
-        # MXU matmul formulation — XLA's direct large-kernel conv lowering
-        # never reaches the MXU on TPU (measured ~0.3 GFLOP/s), so "xla"
-        # means "XLA ops arranged the TPU way", not "naive conv".
-        from pvot.ops.ncc_matmul import make_full_fn, make_region_fn
-
-        return make_full_fn(strip_rows=128), make_region_fn(span_x, span_y), None
-    if name == "xla_fast":
-        from jax import lax
-
-        from pvot.ops.ncc_matmul import make_full_fn, make_region_fn
-
+    engine = resolve(name)
+    full_fn = ncc_matmul.make_full_fn(strip_rows=128)
+    if engine == "xla":
+        return full_fn, ncc_matmul.make_region_fn(span_x, span_y)
+    if engine == "xla_fast":
+        region_fn = ncc_matmul.make_region_fn(
+            span_x, span_y, precision=lax.Precision.HIGH
+        )
+        return full_fn, region_fn
+    if engine == "cpu":
         return (
-            make_full_fn(strip_rows=128),
-            make_region_fn(span_x, span_y, precision=lax.Precision.HIGH),
-            None,
+            ncc_matmul.make_opencv_full_fn(strip_rows=128),
+            ncc_matmul.make_opencv_region_fn(span_x, span_y),
         )
-    if name == "ref_conv":
-        return ncc_map_reference, step_mod.default_region_fn(span_x, span_y), None
-    if name == "cpu":
-        from pvot.ops.ncc_matmul import make_opencv_full_fn, make_opencv_region_fn
+    # "ref_conv"
+    from pvot.tracker.step import default_region_fn
 
-        return (
-            make_opencv_full_fn(strip_rows=128),
-            make_opencv_region_fn(span_x, span_y),
-            None,
-        )
-    if name == "auto":
-        if prefer_pallas(templ_shape, span_x, span_y):
-            # Shear engine first; its own probe failure falls through to the
-            # operator-Pallas engine and then the matmul engines (the
-            # "pallas_shear" branch below encodes that chain).  Probing
-            # happens at the geometry this backend will serve (round-2
-            # verdict: a tiny-geometry probe passes while large-geometry
-            # Mosaic/VMEM failures explode mid-run).
-            return get_backend("pallas_shear", frame_shape, templ_shape, config)
-        return get_backend("xla_fast", frame_shape, templ_shape, config)
-    if name in ("pallas", "pallas_fast", "pallas_shear"):
-        from pvot.ops.ncc_pallas import (
-            pallas_full_fn,
-            pallas_region_fn,
-            pallas_supported,
-        )
-
-        highest = name != "pallas_fast"
-        shear = name == "pallas_shear"
-        if pallas_supported(
-            frame_shape, templ_shape, (span_y, span_x), highest=highest,
-            shear=shear,
-        ):
-            return (
-                # Global-search full maps stay HIGHEST even in the fast
-                # engine (rare path; mirrors xla_fast's full_fn).
-                pallas_full_fn(frame_shape, templ_shape, shear=shear),
-                pallas_region_fn(
-                    frame_shape, templ_shape, (span_y, span_x),
-                    highest=highest, shear=shear,
-                ),
-                _maybe_fused_argmax(
-                    frame_shape, templ_shape, span_x, span_y, highest=highest,
-                    shear=shear,
-                ),
-            )
-        # Graceful fallback (see pallas_supported): same math, MXU matmul
-        # formulation (precision matching the requested engine tier), via
-        # the next tier down for the shear engine.
-        if name == "pallas_shear":
-            return get_backend("pallas", frame_shape, templ_shape, config)
-        if name == "pallas_fast":
-            return get_backend("xla_fast", frame_shape, templ_shape, config)
-        from pvot.ops.ncc_matmul import make_full_fn, make_region_fn
-
-        return make_full_fn(strip_rows=128), make_region_fn(span_x, span_y), None
-    raise ValueError(f"unknown NCC backend: {name!r}")
+    return ncc_map_reference, default_region_fn(span_x, span_y)

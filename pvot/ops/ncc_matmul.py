@@ -1,15 +1,15 @@
-"""MXU-formulated NCC: im2col-x matmul + integral-image box sums.
+"""Matmul-formulated NCC (the "xla" engine): im2col-x matmul + integral-image
+box sums.
 
-XLA's direct lowering of a valid conv with a template-sized (e.g. 80x80)
-kernel is catastrophically slow on TPU (~0.3 GFLOP/s measured — it never
-reaches the MXU), so this module reformulates the reference NCC math
+This module expresses the reference NCC math
 (tracker_ghc/src/baseline_kernel.cu:17-47, see pvot.ops.ncc_reference for the
-semantics) as operations the TPU executes at speed-of-light:
+semantics) as one matrix product plus cheap elementwise work, instead of a
+convolution with a template-sized kernel:
 
   cross-correlation   im2col along x only:  X[y, dx, c] = img[y, dx+c]
-                      R1[y, dx, r] = X @ T^T           (one MXU matmul)
+                      R1[y, dx, r] = X @ T^T           (one matmul)
                       cross[dy, dx] = sum_r R1[dy+r, dx, r]
-                      (cheap shifted adds on the VPU — th slices)
+                      (th shifted adds)
 
   window sums         integral images (exclusive cumsum) -> each sliding
                       box sum is 4 adds, O(1) per output pixel.
@@ -44,15 +44,13 @@ def _im2col_x(img: jax.Array, tw: int, out_w: int) -> jax.Array:
 def cross_correlate(
     img: jax.Array, templ: jax.Array, precision=lax.Precision.HIGHEST
 ) -> jax.Array:
-    """Valid-mode cross-correlation via im2col-x + MXU matmul.
+    """Valid-mode cross-correlation via im2col-x + one matmul.
 
     img (Y, W), templ (th, tw) -> (Y - th + 1, W - tw + 1).
-    Equivalent to pvot.ops.ncc_reference.corr2_valid but ~1000x faster on
-    TPU for template-sized kernels.
+    Equivalent to pvot.ops.ncc_reference.corr2_valid.
 
-    precision: MXU pass count for the f32 matmul.  HIGHEST (6 bf16 passes,
-    exact f32 emulation) is the parity default; see make_region_fn for the
-    measured error/speed ladder.
+    precision: the f32 matmul's precision.  HIGHEST (float32, no TF32) is
+    the parity default; see pvot.ops.backends for what HIGH means on a GPU.
     """
     th, tw = templ.shape
     y, w = img.shape
@@ -78,12 +76,10 @@ def cross_correlate(
 def cross_correlate_conv1d(img: jax.Array, templ: jax.Array) -> jax.Array:
     """Same math as cross_correlate via a 1-D valid conv along width.
 
-    Bit-identical to the im2col formulation on TPU (verified on-chip,
-    tools/conv1d_experiment.py: max abs diff 0.0) — XLA lowers a width-wise
-    1-D conv with template-row filters onto the MXU, unlike the 2-D
-    template-sized conv (which never reaches it).  Skips materializing the
-    (Y, out_w, tw) im2col buffer in HBM; the row-correlation tensor R1 is
-    produced directly.
+    An alternate lowering (a width-wise 1-D conv with template-row filters)
+    that skips materializing the (Y, out_w, tw) im2col buffer in device
+    memory; the row-correlation tensor R1 is produced directly.  Not used
+    by an engine; kept as the cuDNN candidate for the correlation.
     """
     th, tw = templ.shape
     y, w = img.shape
@@ -139,7 +135,7 @@ def ncc_map_matmul(
     strip_rows: int = 0,
     precision=lax.Precision.HIGHEST,
 ) -> jax.Array:
-    """Full NCC map with reference epsilon semantics, MXU formulation.
+    """Full NCC map with reference epsilon semantics, matmul formulation.
 
     Matches pvot.ops.ncc_reference.ncc_map_reference to f32 accumulation
     order (tests assert ~1e-5 agreement with the f64 oracle).
@@ -180,11 +176,10 @@ def ncc_map_matmul(
 def ncc_map_opencv_matmul(
     frame: jax.Array, templ: jax.Array, strip_rows: int = 0
 ) -> jax.Array:
-    """cv::matchTemplate(TM_CCOEFF_NORMED) semantics, MXU formulation.
+    """cv::matchTemplate(TM_CCOEFF_NORMED) semantics, matmul formulation.
 
     Same math as pvot.ops.ncc_reference.ncc_map_opencv (the --cpu parity
-    mode) built from cross_correlate + sliding_box_sums so it runs at MXU
-    speed on TPU.
+    mode) built from cross_correlate + sliding_box_sums.
     """
     frame = ensure_gray_f32(frame)
     templ = templ.astype(jnp.float32)
@@ -362,10 +357,9 @@ def make_region_fn(span_x: int, span_y: int, precision=lax.Precision.HIGHEST):
     and evaluates NCC only there — the ~50x work reduction the reference
     leaves on the table (SURVEY.md §3.5).
 
-    precision controls the MXU pass count of the correlation matmul
-    (HIGHEST = 6 bf16 passes = exact f32; HIGH = 3; DEFAULT = 1).  HIGHEST
-    is the default: it is the only setting with score parity to the f32
-    oracle (~1e-7); see tools/perf_ab.py for the measured ladder."""
+    precision sets the correlation matmul's precision.  HIGHEST (float32)
+    is the default and the only setting with score parity to the f32
+    oracle; HIGH is the "xla_fast" engine (pvot.ops.backends)."""
 
     def region_fn(frame, templ, t_mean, t_std, x0, y0):
         th, tw = templ.shape

@@ -20,8 +20,7 @@ epsilons, the frame std gets a variance clamp plus one epsilon.  We reproduce
 that epsilon structure bit-for-bit in structure (f32 rounding differs only in
 accumulation order).
 
-Instead of a per-pixel loop, all window sums become XLA convolutions (which
-the TPU compiler lowers onto the MXU):
+Instead of a per-pixel loop, all window sums become XLA convolutions:
 
     sum  = corr2(frame,  ones)
     ssq  = corr2(frame²,  ones)
@@ -58,8 +57,7 @@ def template_stats(templ: jax.Array) -> Tuple[jax.Array, jax.Array]:
 def corr2_valid(image: jax.Array, kernel: jax.Array) -> jax.Array:
     """Valid-mode 2-D cross-correlation (no kernel flip) via XLA conv.
 
-    image (H, W) f32, kernel (h, w) f32 -> (H-h+1, W-w+1) f32.  XLA lowers
-    this to MXU matmuls on TPU.
+    image (H, W) f32, kernel (h, w) f32 -> (H-h+1, W-w+1) f32.
     """
     out = lax.conv_general_dilated(
         image[None, None, :, :],
@@ -68,8 +66,8 @@ def corr2_valid(image: jax.Array, kernel: jax.Array) -> jax.Array:
         padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
         preferred_element_type=jnp.float32,
-        # Full f32 on the MXU: the TPU default would round inputs to bf16,
-        # breaking parity with the reference's f32 kernels (~4e-4 NCC error).
+        # Full f32: the default precision may round inputs (TF32 on an
+        # NVIDIA GPU), breaking parity with the reference's f32 kernels.
         precision=lax.Precision.HIGHEST,
     )
     return out[0, 0]
@@ -152,7 +150,7 @@ def ncc_map_opencv(frame: jax.Array, templ: jax.Array) -> jax.Array:
 def ncc_map_batched(frames: jax.Array, templ: jax.Array) -> jax.Array:
     """Batched NCC maps against one template snapshot.
 
-    frames (B, H, W) -> (B, outH, outW).  TPU-native equivalent of
+    frames (B, H, W) -> (B, outH, outW).  The equivalent of
     nccKernelNaiveBatched (tracker_ghc/src/baseline_kernel.cu:100-144):
     blockIdx.z-over-frames becomes a vmapped conv (one fused XLA dispatch).
     """

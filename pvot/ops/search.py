@@ -7,7 +7,7 @@ global-argmax fallback when the window collapses
 
 Two evaluation styles exist:
   * full-map style (reference parity): mask a window of a full NCC map.
-  * fused style (the TPU fast path): the NCC is only ever computed on a
+  * fused style (the fast path): the NCC is only ever computed on a
     fixed-size (2R+1)^2 candidate region sliced around the bbox; a mask keeps
     the argmax identical to the reference's variable-size clamped window.
 

@@ -2,10 +2,10 @@
 
 The reference's proposal lists "multiple-object tracking by running several
 trackers concurrently" as its never-implemented 150% stretch goal (Proposal
-PDF p.3; SURVEY.md §2e).  On TPU it falls out of the functional design: the
+PDF p.3; SURVEY.md §2e).  Here it falls out of the functional design: the
 per-frame step is a pure function of (state, frame), so K objects are a
 `jax.vmap` over K TrackerStates sharing each frame — one fused dispatch for
-all objects, K NCC searches batched onto the MXU together.
+all objects, K NCC searches batched into the same matmuls.
 
 Templates sharing one (th, tw) shape use the plain batched path
 (init_multi_state / make_multi_step).  Heterogeneous template sizes use the
@@ -57,8 +57,8 @@ def make_multi_step(
 
     NOT a plain vmap of the single-object step: under vmap, lax.cond lowers
     to a select that executes BOTH branches, so every object would pay the
-    full-frame NCC every frame (~450x slowdown measured).  Instead the local
-    region search is vmapped (cheap, batched MXU work), and the expensive
+    full-frame NCC every frame.  Instead the local
+    region search is vmapped (cheap, batched matmul work), and the expensive
     global search runs under a SCALAR cond — only on frames where at least
     one object needs re-acquisition, and then for all K objects (their
     templates differ, so K full maps are inherent to that rare case).
@@ -70,7 +70,7 @@ def make_multi_step(
     from pvot.tracker.state import is_bbox_outside_frame
     from pvot.tracker.step import apply_update
 
-    full_fn, region_fn, _argmax_fn = get_backend(backend, frame_shape, templ_shape, config)
+    full_fn, region_fn = get_backend(backend, frame_shape, templ_shape, config)
     frame_h, frame_w = frame_shape
     templ_h, templ_w = templ_shape
     out_w = frame_w - templ_w + 1
@@ -103,20 +103,13 @@ def make_multi_step(
 
         f_ax = 0 if per_object_frames else None
 
-        # Local pass for every object (batched MXU work).
+        # Local pass for every object (batched matmul work).
         if use_region:
             x0, y0 = search_ops.region_origin(bounds, out_w, out_h, span_x, span_y)
 
-            if _argmax_fn is not None:
-                # Fused on-chip reduction (the Pallas engine): vmap lifts
-                # the kernel's grid over objects/streams; the per-object
-                # score maps never reach HBM.
-                def one_local(fr, templ, t_mean, t_std, x0k, y0k, b):
-                    return _argmax_fn(fr, templ, t_mean, t_std, x0k, y0k, b)
-            else:
-                def one_local(fr, templ, t_mean, t_std, x0k, y0k, b):
-                    scores = region_fn(fr, templ, t_mean, t_std, x0k, y0k)
-                    return search_ops.masked_region_argmax(scores, x0k, y0k, b)
+            def one_local(fr, templ, t_mean, t_std, x0k, y0k, b):
+                scores = region_fn(fr, templ, t_mean, t_std, x0k, y0k)
+                return search_ops.masked_region_argmax(scores, x0k, y0k, b)
 
             l_val, l_x, l_y = jax.vmap(one_local, in_axes=(f_ax, 0, 0, 0, 0, 0, 0))(
                 frame, states.template, states.t_mean, states.t_std, x0, y0, bounds
@@ -230,13 +223,7 @@ def track_video_multi(
     frames = np.asarray(frames)
     f, h, w = frames.shape
     th, tw = states.template.shape[-2:]
-    bucketed = any(
-        (int(eh), int(ew)) != (th, tw)
-        for eh, ew in zip(
-            np.asarray(states.bbox_h), np.asarray(states.bbox_w)
-        )
-    )
-    if bucketed:
+    if is_bucketed(states):
         multi_step = make_multi_step_bucketed((h, w), (th, tw), config)
     else:
         multi_step = make_multi_step(
@@ -300,6 +287,16 @@ def init_multi_state_bucketed(
             )
         )
     return jax.tree.map(lambda *xs: jnp.stack(xs), *states)
+
+
+def is_bucketed(states: TrackerState) -> bool:
+    """True for stacked states from init_multi_state_bucketed: some lane's
+    bbox extent (== its template extent) differs from the template bucket."""
+    th, tw = np.shape(states.template)[-2:]
+    return any(
+        (int(eh), int(ew)) != (th, tw)
+        for eh, ew in zip(np.asarray(states.bbox_h), np.asarray(states.bbox_w))
+    )
 
 
 def make_multi_step_bucketed(

@@ -1,9 +1,8 @@
 """Multi-chip sharded tracking via jax.sharding.Mesh + shard_map.
 
 The reference is single-process/single-GPU with no communication backend
-(SURVEY.md §2e); scaling here is designed the TPU way instead of translating
-anything: a device mesh with named axes, explicit shardings, and XLA
-collectives over ICI.
+(SURVEY.md §2e); scaling here is a device mesh with named axes, explicit
+shardings, and XLA collectives (NCCL on GPUs).
 
 Two orthogonal parallel axes:
 
@@ -15,8 +14,9 @@ Two orthogonal parallel axes:
               lexicographic reduction that preserves cv::minMaxLoc's
               row-major first-occurrence tie-break.
 
-The combined step is the `dryrun_multichip` payload (see __graft_entry__.py):
-it jits under a Mesh with in/out shardings and runs one real step.
+track_video_sharded scans a clip through the combined step; chip_smoke.py
+--four-cards checks it against the unsharded step on four GPUs, and
+__graft_entry__.dryrun_multichip rehearses it on virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -64,14 +64,9 @@ def make_search_sharded_step(
     Row-major tie-breaking survives because slabs are ordered by y and the
     combine prefers (val, -y, -x) lexicographically.
 
-    backend names the per-slab NCC engine (round 4): "xla" is the MXU
-    matmul formulation; "pallas_shear"/"pallas"/"pallas_fast" resolve
-    through the registry's per-geometry compile+numerics probe AT THE SLAB
-    GEOMETRY (local slab and global strip are probed separately) with the
-    registry's graceful fallback chain — on hosts without the Pallas
-    engines (e.g. the virtual-CPU dryrun mesh) this collapses back to the
-    matmul engine automatically, so the multi-chip path is no longer
-    pinned 2-3x below the single-chip engines when real chips arrive.
+    backend names the per-slab NCC engine: "xla" scores each slab with
+    pvot.ops.ncc_matmul.ncc_map_matmul in one piece; any other name
+    resolves through pvot.ops.backends to that engine's full-map scorer.
     """
     frame_h, frame_w = frame_shape
     templ_h, templ_w = templ_shape
@@ -89,16 +84,8 @@ def make_search_sharded_step(
     else:
         from pvot.ops.backends import get_backend
 
-        # Probe at the exact shapes each pass scores (the round-2 lesson:
-        # tiny-geometry probes pass while large-geometry Mosaic failures
-        # explode mid-run).
-        slab_map_fn = get_backend(
-            backend,
-            (slab_y + templ_h - 1, span_x + templ_w - 1),
-            templ_shape, config,
-        )[0]
-        strip_map_fn = get_backend(
-            backend, (full_slab + templ_h - 1, frame_w), templ_shape, config,
+        slab_map_fn = strip_map_fn = get_backend(
+            backend, frame_shape, templ_shape, config
         )[0]
 
     def _lex_combine(val, x, y, axis_name):
@@ -137,11 +124,10 @@ def make_search_sharded_step(
         def per_shard(states, frames):
             my = lax.axis_index(search_axis)
 
-            # Structure note (round-2 review fix): the per-stream work is
-            # vmapped, and under vmap lax.cond lowers to a select that
-            # executes BOTH branches — so the expensive global full-map
-            # pass must NOT sit inside a per-stream cond (the CLAUDE.md /
-            # pvot.parallel.multi trap).  Instead: the cheap local slab
+            # Structure note: the per-stream work is vmapped, and under
+            # vmap lax.cond lowers to a select that executes BOTH branches
+            # — so the expensive global full-map pass must NOT sit inside a
+            # per-stream cond (the pvot.parallel.multi trap).  Instead: the cheap local slab
             # pass always runs (vmapped), and the global pass runs under a
             # SCALAR cond — only on frames where some local stream needs
             # re-acquisition — overlaid via where.  The predicate is
@@ -378,10 +364,9 @@ def track_video_sharded(
     search_axis: str = "search",
     backend: str = "xla",
 ):
-    """Scan S video streams across a device mesh: the multi-chip analog of
-    pvot.tracker.scan.track_video.  `backend` picks the per-slab NCC
-    engine (make_search_sharded_step): the Pallas engines where their
-    geometry probe passes, the matmul formulation otherwise.
+    """Scan S video streams across a device mesh: the multi-device analog
+    of pvot.tracker.scan.track_video.  `backend` picks the per-slab NCC
+    engine (make_search_sharded_step).
 
     videos: (S, F, H, W) uint8/f32 — S lockstep streams of F frames each.
     states: TrackerState with leading stream axis S (sharded over
@@ -434,8 +419,8 @@ def track_video_sharded(
         )
         return states, empty
     dev = jax.tree.map(lambda *xs: jnp.concatenate(xs, axis=0), *outs)
-    # One packed (F, S, 7) transfer instead of four leaves (each fetch costs
-    # ~30-80 ms of relay latency; see tracker.scan.fetch_outputs).
+    # One packed (F, S, 7) transfer instead of four leaves (see
+    # tracker.scan.fetch_outputs).
     from pvot.tracker.scan import fetch_outputs
 
     return states, fetch_outputs(dev)

@@ -1,8 +1,8 @@
 // pvot native runtime: host-side data-loader kernels.
 //
-// TPU-native equivalent of the reference's host-side C++ preprocessing
+// pvot's equivalent of the reference's host-side C++ preprocessing
 // (to_gray in tracker_ghc/include/utils.hpp:4-13 — OpenCV's cvtColor +
-// convertTo on the decode thread).  The TPU pipeline ships uint8 gray frames
+// convertTo on the decode thread).  The device pipeline ships uint8 gray frames
 // to the device, so the host hot path is BGR->gray conversion and frame-ring
 // management; both live here as a small C library driven from Python via
 // ctypes (no pybind11 in this image).
@@ -16,7 +16,9 @@
 #include <cstring>
 
 #if defined(_OPENMP)
+#ifdef _OPENMP
 #include <omp.h>
+#endif
 #endif
 
 namespace {

@@ -3,7 +3,7 @@
 The reference carries this state across frames as C++ locals in the tracking
 loop (tracker_ghc/src/main.cpp:135, 125, 142-143): {curr_bbox, templ_gray,
 lost_frame_count, use_global_search}.  Here it is an immutable pytree — the
-`lax.scan` carry of the TPU tracking loop — extended with cached template
+`lax.scan` carry of the device tracking loop — extended with cached template
 stats so mean/std are recomputed only when the template changes (the
 reference recomputes them on the host every frame,
 tracker_ghc/src/baseline_kernel.cu:263-266; caching is exact because stats are

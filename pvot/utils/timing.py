@@ -6,7 +6,7 @@ deltas and prints an end-of-run summary (tracker_ghc/src/main.cpp:243-246,
 (tracker/src/main.cpp:101,163-164,180), and the CPU baseline times each
 pipeline stage (baseline_cpu/cpub.cpp:101-148).  All three styles exist here.
 
-TPU caveat baked into the API: device dispatch is asynchronous, so compute
+Accelerator caveat baked into the API: device dispatch is asynchronous, so compute
 sections must synchronize on their outputs (`block=` argument) or the
 measured time is the enqueue time, not the execution time.
 """

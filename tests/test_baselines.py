@@ -1,4 +1,4 @@
-"""Baseline model tests (B1 CSRT wrap, B2 TPU-native median-flow tracker)
+"""Baseline model tests (B1 CSRT wrap, B2 JAX median-flow tracker)
 plus utils (timing, checkpoint)."""
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Tests for the MXU-formulated NCC (pvot.ops.ncc_matmul).
+"""Tests for the matmul-formulated NCC (pvot.ops.ncc_matmul).
 
 It must agree with the conv-based oracle (pvot.ops.ncc_reference) and the f64
 brute force to f32 tolerance, for every code path (whole-buffer, strip-wise,
@@ -121,7 +121,7 @@ def test_opencv_matmul_matches_conv_oracle(rng):
 
 def test_conv1d_cross_correlate_matches_im2col(rng):
     """cross_correlate_conv1d is an alternate lowering of the same math
-    (bit-identical on TPU; here we allow f32 reassociation tolerance)."""
+    (f32 reassociation tolerance)."""
     import jax.numpy as jnp
 
     from pvot.ops.ncc_matmul import cross_correlate, cross_correlate_conv1d

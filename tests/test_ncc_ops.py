@@ -136,7 +136,7 @@ def test_backend_registry_covers_reference_modes(rng):
     for mode in ("cuda", "naive", "xla", "shared", "const", "const_tiled",
                  "batch", "ref_conv", "fast", "xla_fast", "auto"):
         assert mode in MODE_TO_BACKEND
-        full_fn, region_fn, _ = get_backend(mode, (48, 64), (8, 8), cfg)
+        full_fn, region_fn = get_backend(mode, (48, 64), (8, 8), cfg)
         got = np.asarray(full_fn(frame, templ, t_mean, t_std))
         np.testing.assert_allclose(got, want, atol=5e-5, err_msg=mode)
         reg = np.asarray(
@@ -144,7 +144,7 @@ def test_backend_registry_covers_reference_modes(rng):
         )
         np.testing.assert_allclose(reg, want[7:20, 5:18], atol=5e-5, err_msg=mode)
     # cpu mode normalizes differently (TM_CCOEFF_NORMED) but must run.
-    full_fn, region_fn, _ = get_backend("cpu", (48, 64), (8, 8), cfg)
+    full_fn, region_fn = get_backend("cpu", (48, 64), (8, 8), cfg)
     assert np.asarray(full_fn(frame, templ, t_mean, t_std)).shape == want.shape
 
 
@@ -165,7 +165,7 @@ def test_uint8_wire_dtype_matches_f32(rng):
     templ = frame_f32[10:18, 20:28]
     t_mean, t_std = template_stats(templ)
     for mode in sorted(set(MODE_TO_BACKEND.values())):
-        full_fn, region_fn, _ = get_backend(mode, (48, 64), (8, 8), cfg)
+        full_fn, region_fn = get_backend(mode, (48, 64), (8, 8), cfg)
         a = np.asarray(full_fn(frame_u8, templ, t_mean, t_std))
         b = np.asarray(full_fn(frame_f32, templ, t_mean, t_std))
         np.testing.assert_array_equal(a, b, err_msg=mode)
@@ -179,19 +179,13 @@ def test_uint8_wire_dtype_matches_f32(rng):
 
 
 def test_auto_backend_engine_choice():
-    """Round 3: prefer_pallas always picks the Pallas engine (measured to
-    win or tie at every tested geometry once the direct operator build
-    landed; tools/engine_ab_bench.py); the geometry-keyed support probe is
-    the only gate, so `auto` still resolves to the matmul engine where the
-    probe fails (e.g. this CPU test environment)."""
+    """--auto names the xla engine outright: no compile or probe decides
+    it, and the resolved functions are the matmul engine's."""
     from pvot.config import TrackerConfig
-    from pvot.ops.backends import get_backend, prefer_pallas
+    from pvot.ops.backends import get_backend, resolve
 
-    assert prefer_pallas((80, 80), 121, 121)
-    assert prefer_pallas((80, 80), 321, 321)
-    assert prefer_pallas((16, 16), 321, 321)
-    # On CPU the compiled-kernel probe fails -> auto falls back to the
-    # matmul fast engine rather than erroring.
+    assert resolve("auto") == "xla"
     cfg = TrackerConfig(search_radius_x=10, search_radius_y=10)
-    full_fn, region_fn, _ = get_backend("auto", (48, 64), (8, 8), cfg)
+    full_fn, region_fn = get_backend("auto", (48, 64), (8, 8), cfg)
     assert full_fn.__module__ == "pvot.ops.ncc_matmul"
+    assert region_fn.__module__ == "pvot.ops.ncc_matmul"

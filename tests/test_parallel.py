@@ -56,7 +56,7 @@ def test_multi_object_matches_single():
         )
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_search_sharded_step_matches_unsharded():
     """TP-style search sharding: (data=2, search=4) mesh reproduces the
     single-device step exactly, collectives and all."""
@@ -94,7 +94,7 @@ def test_search_sharded_step_matches_unsharded():
             )
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_data_parallel_multi_step_runs():
     """(streams x objects) sharding compiles and preserves trajectories."""
     spec, video, roi, templ = _setup(5)
@@ -252,7 +252,7 @@ def test_bucketed_global_reacquisition():
     assert abs(int(b[0]) - gx) <= 3 and abs(int(b[1]) - gy) <= 3
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_track_video_sharded_matches_unsharded():
     """The scanned multi-chip driver (chunked masked scan of the
     (data x search)-sharded step) reproduces per-stream unsharded
@@ -292,7 +292,7 @@ def test_track_video_sharded_matches_unsharded():
     )
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_search_sharded_global_reacquisition_matches_unsharded():
     """Round-5 VERDICT item: the sharded GLOBAL-SEARCH branch (full-map
     strip-per-device scorer + share mask + _lex_combine) was never
@@ -352,7 +352,7 @@ def test_search_sharded_global_reacquisition_matches_unsharded():
         assert abs(int(last[0]) - gx) <= 3 and abs(int(last[1]) - gy) <= 3
 
 
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_search_sharded_global_tie_row_major_across_shards():
     """A full-map EXACT score tie spanning two different search shards must
     land on the row-major first occurrence (cv::minMaxLoc semantics carried
@@ -400,11 +400,9 @@ def test_search_sharded_global_tie_row_major_across_shards():
 
 
 def test_track_video_sharded_backend_arg():
-    """Round 4: the sharded step's per-slab engine is selectable.  On this
-    CPU mesh the Pallas probe fails at the slab geometry and the registry
-    chain collapses to the matmul engine, so trajectories must equal the
-    default engine's (on TPU the probe passes and the shear kernel scores
-    the slabs instead)."""
+    """The sharded step's per-slab engine is selectable by mode name: the
+    "cuda" alias resolves through pvot.ops.backends to the "xla" engine's
+    full-map scorer, whose trajectories equal the default path's."""
     from pvot.parallel.sharded import track_video_sharded
 
     spec_a, video_a, roi_a, templ_a = _setup(9)
@@ -419,71 +417,9 @@ def test_track_video_sharded_backend_arg():
     videos = np.stack([video_a[1:], video_a[1:]])
     _, want = track_video_sharded(videos, states, mesh, CFG, chunk_size=6)
     _, got = track_video_sharded(
-        videos, states, mesh, CFG, chunk_size=6, backend="pallas_shear"
+        videos, states, mesh, CFG, chunk_size=6, backend="cuda"
     )
     np.testing.assert_array_equal(np.asarray(want.bbox), np.asarray(got.bbox))
     np.testing.assert_array_equal(
         np.asarray(want.score), np.asarray(got.score)
     )
-
-
-def test_multi_step_fused_argmax_matches_unfused_pallas(monkeypatch):
-    """make_multi_step with a backend that supplies a region_argmax_fn (the
-    Pallas engine) vmaps the fused on-chip reduction; it must match the
-    UNFUSED Pallas path (same kernel scores, XLA-side masked argmax)
-    bit-for-bit — the fusion moves the reduction, it must not change it.
-    (Pallas-vs-matmul score differences are separate engine numerics, ~1e-4
-    on low-variance patches, and are covered by the engine parity tests.)"""
-    import pvot.ops.backends as backends_mod
-    from pvot.ops.ncc_pallas import ncc_map_pallas, ncc_region_argmax_pallas
-    from pvot.ops.search import masked_region_argmax
-    from pvot.parallel.multi import make_multi_step
-
-    spec, video, roi, templ = _setup(9)
-    roi2 = (40, 40, 24, 24)
-    templ2 = gray_u8_to_f32(video[0])[40:64, 40:64]
-
-    span = 2 * CFG.search_radius_x + 1
-    real_get = backends_mod.get_backend
-
-    def make_patched(fused):
-        def patched(name, frame_shape, templ_shape, config):
-            full_fn, _, _ = real_get(name, frame_shape, templ_shape, config)
-            th, tw = templ_shape
-
-            def slice_region(frame, y0, x0):
-                return jax.lax.dynamic_slice(
-                    frame, (y0, x0), (span + th - 1, span + tw - 1)
-                )
-
-            def region_fn(frame, t, t_mean, t_std, x0, y0):
-                return ncc_map_pallas(
-                    slice_region(frame, y0, x0), t, t_mean, t_std,
-                    interpret=True,
-                )
-
-            def argmax_fn(frame, t, t_mean, t_std, x0, y0, bounds):
-                return ncc_region_argmax_pallas(
-                    slice_region(frame, y0, x0), t, bounds, x0, y0,
-                    t_mean, t_std, interpret=True,
-                )
-
-            return full_fn, region_fn, (argmax_fn if fused else None)
-
-        return patched
-
-    def run(fused):
-        monkeypatch.setattr(backends_mod, "get_backend", make_patched(fused))
-        mstep = make_multi_step((192, 256), (24, 24), CFG)
-        st = init_multi_state([templ, templ2], [roi, roi2])
-        boxes, scores = [], []
-        for f in video[1:]:
-            st, out = mstep(st, jnp.asarray(f))
-            boxes.append(np.asarray(out.bbox))
-            scores.append(np.asarray(out.score))
-        return np.stack(boxes), np.stack(scores)
-
-    want_boxes, want_scores = run(fused=False)
-    got_boxes, got_scores = run(fused=True)
-    np.testing.assert_array_equal(got_boxes, want_boxes)
-    np.testing.assert_array_equal(got_scores, want_scores)

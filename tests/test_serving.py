@@ -1,8 +1,7 @@
-"""End-to-end multi-stream serving tests (pvot.io.serving.serve_streams):
-lockstep feeds over unequal-length streams, the mega path in interpret
-mode (including per-stream poison transactions), and the per-stream-valid
-scan fallback.  Chip-level serving numbers live in benchmarks/suite.py
-(7m* keys)."""
+"""End-to-end serving tests (pvot.io.serving): lockstep feeds over
+unequal-length streams with per-stream validity, multi-object and grouped
+serving, the device fan-out, and the pvot-serve CLI.  Every served stream
+or object is checked against its own single-stream track_video."""
 
 import jax
 import jax.numpy as jnp
@@ -46,20 +45,6 @@ def _assert_stream_equal(want, got):
     np.testing.assert_allclose(want.score, got.score, atol=1e-5)
 
 
-def _assert_stream_equal_global(want, got):
-    """In-kernel global-search serving contract: bboxes/flags bit-equal,
-    accepted scores strict, rejected scores engine-grade (see
-    pvot.tracker.mega._outputs_equal)."""
-    np.testing.assert_array_equal(want.bbox, got.bbox)
-    np.testing.assert_array_equal(want.updated, got.updated)
-    np.testing.assert_array_equal(want.used_global, got.used_global)
-    acc = np.asarray(want.updated)
-    np.testing.assert_allclose(
-        np.asarray(want.score)[acc], np.asarray(got.score)[acc], atol=1e-5
-    )
-    np.testing.assert_allclose(want.score, got.score, atol=2e-3)
-
-
 def test_stream_feed_holds_after_end(rng):
     frames = rng.integers(0, 256, size=(6, 8, 8), dtype=np.uint8)
     feed = _StreamFeed(iter(frames), (8, 8), chunk_size=4)
@@ -96,145 +81,21 @@ def test_serve_streams_scan_unequal_lengths():
         )
 
 
-def test_serve_streams_mega_interpret_unequal_lengths():
-    """The mega serving path (one pallas_call per lockstep chunk) over
-    unequal-length streams: ended streams ride n_valid=0 lanes with frozen
-    state while the longest stream finishes."""
-    lengths = [13, 7]
-    videos, states, stacked = _make_streams(lengths)
-    timings: list = []
-    final, outs = serve_streams(
-        [iter(v[1:]) for v in videos], stacked, (94, 250), CONFIG,
-        backend="mega", scan_backend="xla", chunk_size=4,
-        timings=timings, interpret=True, _probe=True,
-    )
-    assert [o.bbox.shape[0] for o in outs] == lengths
-    assert sum(n for n, _ in timings) == sum(lengths)
-    for s, n in enumerate(lengths):
-        want_state, want = track_video(
-            videos[s][1:], states[s], CONFIG, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        _assert_stream_equal(want, outs[s])
-        assert int(final.bbox_x[s]) == int(want_state.bbox_x)
-
-
-def test_serve_streams_score_passes_plumbing():
-    """Round 5: serve_streams exposes the fast tier's MXU pass count; the
-    1-pass tier must reach the kernel and track the fixture (trajectory
-    vs the HIGHEST-tier serve; scores drift at fast-tier magnitude)."""
-    lengths = [9, 9]
-    videos, states, stacked = _make_streams(lengths)
-    kw = dict(
-        backend="mega", scan_backend="xla", chunk_size=4,
-        interpret=True, _probe=True,
-    )
-    _, outs_hi = serve_streams(
-        [iter(v[1:]) for v in videos], stacked, (94, 250), CONFIG, **kw
-    )
-    _, outs_f1 = serve_streams(
-        [iter(v[1:]) for v in videos], stacked, (94, 250), CONFIG,
-        highest=False, score_passes=1, **kw
-    )
-    for s in range(2):
-        np.testing.assert_array_equal(outs_hi[s].bbox, outs_f1[s].bbox)
-        drift = float(np.max(np.abs(
-            np.asarray(outs_hi[s].score) - np.asarray(outs_f1[s].score)
-        )))
-        assert 0.0 < drift < 2e-2, drift  # fast tier really ran
-
-
-@pytest.mark.parametrize("depth", [1, 2, 3])
-def test_serve_streams_mega_per_stream_poison(depth):
-    """A stream that loses its object mid-serve poisons and re-runs ONLY
-    its own chunks on the scan path; the healthy stream's mega records
-    commit untouched and both trajectories match the scan oracle.  depth=1
-    is the strict synchronous mode; depth>=2 discovers the poison one or
-    more chunks late and must flush the in-flight window (committing the
-    clean lane's records, re-running the poisoned lane's)."""
-    config = TrackerConfig(
-        search_radius_x=8, search_radius_y=8, lost_frame_threshold=2
-    )
-    # Stream 0 tracks cleanly (slow 120-frame sinusoid sliced short);
-    # stream 1 exits the frame and re-enters (goes global).
-    videos, states, stacked = _make_streams(
-        [17, 17],
-        spec_overrides=(
-            dict(num_frames=120),
-            dict(seed=5, exit_and_reenter=True, noise_std=2.0),
-        ),
-    )
-    videos = [v[:18] for v in videos]
-    final, outs = serve_streams(
-        [iter(v[1:]) for v in videos], stacked, (94, 250), config,
-        backend="mega", scan_backend="xla", chunk_size=4,
-        pipeline_depth=depth, interpret=True, _probe=True,
-    )
-    assert outs[1].used_global.any(), "lost stream must go global"
-    assert not outs[0].used_global.any()
-    for s in range(2):
-        want_state, want = track_video(
-            videos[s][1:], states[s], config, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        _assert_stream_equal(want, outs[s])
-        assert int(final.bbox_x[s]) == int(want_state.bbox_x)
-
-
-def test_serve_streams_mega_inkernel_global():
-    """Serving with the in-kernel global-search kernel: the lost stream
-    re-acquires ON-CHIP — no poison lanes, no rollback re-runs, no
-    pipeline disturbance — and both trajectories match the scan oracle
-    (the round-4 occlusion-regime fix at the serving layer)."""
-    config = TrackerConfig(
-        search_radius_x=8, search_radius_y=8, lost_frame_threshold=2
-    )
-    videos, states, stacked = _make_streams(
-        [17, 17],
-        spec_overrides=(
-            dict(num_frames=120),
-            dict(seed=5, exit_and_reenter=True, noise_std=2.0),
-        ),
-    )
-    videos = [v[:18] for v in videos]
-    final, outs = serve_streams(
-        [iter(v[1:]) for v in videos], stacked, (94, 250), config,
-        backend="mega", scan_backend="xla", chunk_size=4,
-        pipeline_depth=2, interpret=True, _probe=True,
-        inkernel_global=True,
-    )
-    assert outs[1].used_global.any(), "lost stream must go global"
-    assert not outs[0].used_global.any()
-    for s in range(2):
-        want_state, want = track_video(
-            videos[s][1:], states[s], config, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        _assert_stream_equal_global(want, outs[s])
-        assert int(final.bbox_x[s]) == int(want_state.bbox_x)
-
-
-@pytest.mark.skipif(jax.device_count() < 4, reason="needs 4 virtual devices")
-@pytest.mark.parametrize("use_mega", [False, True])
-def test_serve_streams_multidevice(use_mega):
+def test_serve_streams_multidevice(need_devices):
     """Streams fanned over 4 devices (host-driven data parallelism, one
     pipelined driver per device group) must return BIT-IDENTICAL results
     to the single-device serve, in submission order — the fan-out only
     changes placement, never math."""
+    need_devices(4)
     lengths = [13, 6, 9, 11, 7]
     videos, states, stacked = _make_streams(lengths)
-    kw = (
-        dict(backend="mega", interpret=True, _probe=True)
-        if use_mega else dict(backend="xla")
-    )
     want_final, want_outs = serve_streams(
         [iter(v[1:]) for v in videos], stacked, (94, 250), CONFIG,
-        scan_backend="xla", chunk_size=4, **kw,
+        backend="xla", chunk_size=4,
     )
     final, outs = serve_streams(
         [iter(v[1:]) for v in videos], stacked, (94, 250), CONFIG,
-        scan_backend="xla", chunk_size=4,
-        devices=jax.devices()[:4], **kw,
+        backend="xla", chunk_size=4, devices=jax.devices()[:4],
     )
     assert [o.bbox.shape[0] for o in outs] == lengths
     for s in range(len(lengths)):
@@ -384,7 +245,7 @@ def test_serve_cli_checkpoint_resume(tmp_path, capsys):
 def _make_objects_clip(n_frames=17, exit_and_reenter=False):
     """One clip + K decisive trackables: the moving target plus a
     distinctive STATIC patch stamped into every frame (bare-background
-    patches are NCC-degenerate; see tests/test_mega.py)."""
+    patches are NCC-degenerate)."""
     import itertools
 
     from pvot.io.synthetic import generate_gray_frames
@@ -413,109 +274,16 @@ def _make_objects_clip(n_frames=17, exit_and_reenter=False):
     return frames, states, stacked
 
 
-@pytest.mark.parametrize("depth", [1, 2])
-def test_serve_objects_mega_interpret(depth):
-    """Streaming multi-object serving (serve_objects, mega path): K
-    trackers over one live stream, (F, K) output, each lane equal to a
-    lone tracker over the same clip."""
-    from pvot.io.serving import serve_objects
-
-    frames, states, stacked = _make_objects_clip(n_frames=13)
-    timings: list = []
-    final, out = serve_objects(
-        iter(frames[1:]), stacked, (94, 250), CONFIG,
-        backend="mega", scan_backend="xla", chunk_size=4,
-        timings=timings, pipeline_depth=depth, interpret=True, _probe=True,
-    )
-    assert out.bbox.shape == (13, 2, 4)
-    assert sum(n for n, _ in timings) == 13
-    for k in range(2):
-        want_state, want = track_video(
-            frames[1:], states[k], CONFIG, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        np.testing.assert_array_equal(want.bbox, out.bbox[:, k])
-        np.testing.assert_array_equal(want.updated, out.updated[:, k])
-        np.testing.assert_allclose(want.score, out.score[:, k], atol=1e-5)
-        assert int(final.bbox_x[k]) == int(want_state.bbox_x)
-
-
-def test_serve_objects_mega_inkernel_global():
-    """serve_objects with the in-kernel global-search kernel: the lane
-    that exits the frame re-acquires on-chip, the static-patch lane is
-    untouched, both match lone-tracker oracles."""
-    from pvot.io.serving import serve_objects
-
-    config = TrackerConfig(
-        search_radius_x=8, search_radius_y=8, lost_frame_threshold=2
-    )
-    frames, states, stacked = _make_objects_clip(
-        n_frames=17, exit_and_reenter=True
-    )
-    final, out = serve_objects(
-        iter(frames[1:]), stacked, (94, 250), config,
-        backend="mega", scan_backend="xla", chunk_size=4,
-        interpret=True, _probe=True, inkernel_global=True,
-    )
-    assert out.used_global[:, 1].any(), "exiting lane must go global"
-    for k in range(2):
-        want_state, want = track_video(
-            frames[1:], states[k], config, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        got_k = type(want)(
-            bbox=out.bbox[:, k], score=out.score[:, k],
-            used_global=out.used_global[:, k], updated=out.updated[:, k],
-        )
-        _assert_stream_equal_global(want, got_k)
-        assert int(final.bbox_x[k]) == int(want_state.bbox_x)
-
-
-def test_serve_objects_mega_poison_and_wire_staging():
-    """A lane that goes global poisons and re-runs only itself (the
-    static-patch lane's mega records commit untouched); wire-size staging
-    is bit-identical to pre-padded."""
-    from pvot.io.serving import serve_objects
-
-    config = TrackerConfig(
-        search_radius_x=8, search_radius_y=8, lost_frame_threshold=2
-    )
-    frames, states, stacked = _make_objects_clip(
-        n_frames=17, exit_and_reenter=True
-    )
-    runs = []
-    for prepad in (True, False):
-        final, out = serve_objects(
-            iter(frames[1:]), stacked, (94, 250), config,
-            backend="mega", scan_backend="xla", chunk_size=4,
-            prepad=prepad, interpret=True, _probe=True,
-        )
-        runs.append((final, out))
-    (fa, oa), (fb, ob) = runs
-    np.testing.assert_array_equal(oa.bbox, ob.bbox)
-    np.testing.assert_array_equal(oa.score, ob.score)
-    assert oa.used_global[:, 1].any(), "lost lane must go global"
-    assert not oa.used_global[:, 0].any()
-    for k in range(2):
-        want_state, want = track_video(
-            frames[1:], states[k], config, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        np.testing.assert_array_equal(want.bbox, oa.bbox[:, k])
-        np.testing.assert_array_equal(want.used_global, oa.used_global[:, k])
-        assert int(fa.bbox_x[k]) == int(want_state.bbox_x)
-
-
 def test_serve_objects_scan_fallback():
-    """Outside the mega envelope serve_objects serves on the vmapped
-    multi-object scan step with the same (F, K) contract."""
+    """serve_objects serves on the vmapped multi-object scan step with the
+    (F, K) contract, at a wide asymmetric radius."""
     from pvot.io.serving import serve_objects
 
     config = TrackerConfig(search_radius_x=70, search_radius_y=8)
     frames, states, stacked = _make_objects_clip(n_frames=9)
     final, out = serve_objects(
         iter(frames[1:]), stacked, (94, 250), config,
-        backend="mega", scan_backend="xla", chunk_size=4,
+        backend="xla", chunk_size=4,
     )
     assert out.bbox.shape == (9, 2, 4)
     for k in range(2):
@@ -529,21 +297,15 @@ def test_serve_objects_scan_fallback():
 
 def test_serve_objects_empty_stream_keeps_layout():
     """Zero served frames still honor the documented (F, K) output layout
-    (F = 0) on BOTH serve_objects arms — mega and the scan fallback."""
+    (F = 0), at two radii."""
     from pvot.io.serving import serve_objects
 
     _, _, stacked = _make_objects_clip(n_frames=3)
-    for kwargs in (
-        dict(backend="mega", interpret=True, _probe=True),  # mega arm
-        dict(  # scan-fallback arm (radius outside the mega envelope)
-            backend="mega", scan_backend="xla",
-            config=TrackerConfig(search_radius_x=70, search_radius_y=8),
-        ),
+    for config in (
+        CONFIG, TrackerConfig(search_radius_x=70, search_radius_y=8),
     ):
-        kwargs.setdefault("config", CONFIG)
-        config = kwargs.pop("config")
         final, out = serve_objects(
-            iter([]), stacked, (94, 250), config, chunk_size=4, **kwargs
+            iter([]), stacked, (94, 250), config, chunk_size=4,
         )
         assert out.bbox.shape == (0, 2, 4)
         assert out.score.shape == (0, 2)
@@ -775,11 +537,11 @@ def test_serve_cli_objects_mode(tmp_path, capsys):
     assert json.loads(lines[0])["object"] == 1
 
 
-@pytest.mark.skipif(jax.device_count() < 2, reason="needs 2 virtual devices")
-def test_serve_cli_devices_flag(capsys):
+def test_serve_cli_devices_flag(capsys, need_devices):
     """--devices N fans the streams over N local devices from the CLI."""
     from pvot.cli.serve import main
 
+    need_devices(2)
     rc = main([
         "--synthetic", "320x240x8", "--streams", "2", "--chunk-size", "4",
         "--search-radius", "24", "--devices", "2",
@@ -809,48 +571,6 @@ def test_serve_cli_arg_errors(capsys):
     # streams mode routes to the grouped heterogeneous driver, objects
     # mode to the bucketed layout (covered by their own tests).
     capsys.readouterr()
-
-
-def test_serve_streams_mega_wire_staging_matches_prepad():
-    """prepad=False (wire-size frames, in-jit pad) must be bit-identical
-    to the host-pre-padded default — the pad only ever adds zero pixels
-    past every slab read."""
-    lengths = [9, 6]
-    videos, states, stacked = _make_streams(lengths)
-    runs = []
-    for prepad in (True, False):
-        final, outs = serve_streams(
-            [iter(v[1:]) for v in videos], stacked, (94, 250), CONFIG,
-            backend="mega", scan_backend="xla", chunk_size=4,
-            prepad=prepad, interpret=True, _probe=True,
-        )
-        runs.append((final, outs))
-    (fa, oa), (fb, ob) = runs
-    for s in range(2):
-        np.testing.assert_array_equal(oa[s].bbox, ob[s].bbox)
-        np.testing.assert_array_equal(oa[s].score, ob[s].score)
-        np.testing.assert_array_equal(
-            np.asarray(fa.template[s]), np.asarray(fb.template[s])
-        )
-
-
-def test_serve_streams_mega_envelope_fallback():
-    """Outside the mega envelope serve_streams(backend='mega') serves on
-    the lockstep scan engines with the same output contract."""
-    config = TrackerConfig(search_radius_x=70, search_radius_y=8)
-    lengths = [9, 5]
-    videos, states, stacked = _make_streams(lengths)
-    final, outs = serve_streams(
-        [iter(v[1:]) for v in videos], stacked, (94, 250), config,
-        backend="mega", scan_backend="xla", chunk_size=4,
-    )
-    assert [o.bbox.shape[0] for o in outs] == lengths
-    for s, n in enumerate(lengths):
-        _, want = track_video(
-            videos[s][1:], states[s], config, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        _assert_stream_equal(want, outs[s])
 
 
 def _assert_stream_equal_hetero(want, got):
@@ -916,30 +636,6 @@ def test_serve_streams_grouped_mixed_geometry():
             np.asarray(finals[s].template),
             np.asarray(want_state.template), atol=1e-4,
         )
-
-
-def test_serve_streams_grouped_mega_interpret():
-    """The grouped driver routes each geometry group through the mega
-    serving path (interpret mode): same per-stream trajectories as the
-    scan oracle."""
-    from pvot.io.serving import serve_streams_grouped
-
-    geoms = [(9, 94, 250, 16), (5, 94, 230, 16)]
-    videos, states, frame_shapes = _make_hetero_streams(geoms)
-    finals, outs = serve_streams_grouped(
-        [iter(v[1:]) for v in videos], states, frame_shapes, CONFIG,
-        backend="mega", scan_backend="xla", chunk_size=4, interpret=True,
-        _probe=True,
-    )
-    for s, (n, h, w, t) in enumerate(geoms):
-        want_state, want = track_video(
-            videos[s][1:], states[s], CONFIG, strategy="fused",
-            backend="xla", chunk_size=4,
-        )
-        # Accepted scores strict, rejected engine-grade (the mega kernel's
-        # noise-max property, pvot.tracker.mega._outputs_equal).
-        _assert_stream_equal_global(want, outs[s])
-        assert int(finals[s].bbox_x) == int(want_state.bbox_x)
 
 
 def test_serve_cli_hetero_video_files(tmp_path, capsys):
@@ -1029,48 +725,6 @@ def test_serve_cli_hetero_checkpoint_resume(tmp_path, capsys):
         for line in (tmp_path / "res.s0.jsonl").read_text().splitlines()
     ]
     assert len(res0) == 12  # every decoded frame got a record
-
-
-def test_serve_objects_bucketed_mega_interpret():
-    """serve_objects with MIXED template sizes: the bucketed mega kernel
-    serves all K in one pallas_call per chunk; trajectories match the
-    per-object single-tracker oracles at their true geometries."""
-    from pvot.io.serving import serve_objects
-    from pvot.io.synthetic import generate_gray_video
-    from pvot.parallel.multi import init_multi_state_bucketed
-
-    config = TrackerConfig(search_radius_x=8, search_radius_y=8)
-    spec = SyntheticSpec(
-        width=250, height=94, num_frames=13, target_w=16, target_h=16,
-        seed=3, noise_std=1.0,
-    )
-    frames = generate_gray_video(spec)
-    x, y, w, h = target_bbox(spec, 0)
-    g = gray_u8_to_f32(frames[0])
-    templs = [g[y : y + h, x : x + w], g[y + 2 : y + 14, x + 2 : x + 14]]
-    rois = [(x, y, w, h), (x + 2, y + 2, 12, 12)]
-    stacked = init_multi_state_bucketed(
-        [np.asarray(t) for t in templs], rois
-    )
-    final, out = serve_objects(
-        iter(frames[1:]), stacked, (94, 250), config, scan_backend="xla",
-        chunk_size=4, interpret=True, _probe=True, inkernel_global=False,
-    )
-    assert out.bbox.shape[:2] == (12, 2)
-    for k in range(2):
-        st = init_state(jnp.asarray(templs[k]), rois[k])
-        want_state, want = track_video(
-            frames[1:], st, config, strategy="fused", backend="xla",
-            chunk_size=4,
-        )
-        np.testing.assert_array_equal(want.bbox, out.bbox[:, k])
-        np.testing.assert_array_equal(want.updated, out.updated[:, k])
-        acc = np.asarray(want.updated)
-        np.testing.assert_allclose(
-            np.asarray(want.score)[acc], np.asarray(out.score[:, k])[acc],
-            atol=5e-5,
-        )
-        assert int(final.bbox_x[k]) == int(want_state.bbox_x)
 
 
 def test_serve_cli_objects_mixed_roi_sizes(tmp_path, capsys):
